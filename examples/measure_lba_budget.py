@@ -1,10 +1,10 @@
-"""On-chip LBA cost-split probe: linearize vs CG, and cg_iters sweep.
+"""LBA cost-split probe on the GPU: linearize vs CG, and cg_iters sweep.
 
 Builds the real bench-config window graph (20 tracked KITTI-scale
 frames) and times the fused solve at various (max_iters, cg_iters),
 plus a hacked cg_iters=0-equivalent to isolate linearize cost.
 
-    python measure_lba_budget.py
+    python examples/measure_lba_budget.py
 """
 import sys
 import time

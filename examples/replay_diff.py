@@ -1,17 +1,18 @@
-"""Record/replay differential for the on-chip rotation regression.
+"""Record/replay differential: GPU step outputs against the CPU.
 
-record mode (on the TPU backend): run the bench-config chained loop,
-recording every frame-step's exact device inputs (state, packed bundle,
-GT tables, PRNG key) and output buffer to a pickle.
+record mode (on the GPU): run the bench-config chained loop, recording
+every frame-step's exact device inputs (state, packed bundle, GT tables,
+PRNG key) and output buffer to a pickle.
 
-replay mode (CPU-pinned): rebuild the same chained step program on CPU,
-feed it the RECORDED inputs, and compare the output pose with the
-recorded TPU output pose frame by frame.  The first frame with a
-material pose delta isolates the divergent on-device computation; if
-all frames agree, the divergence lives in host-side state evolution.
+replay mode (CPU-pinned): rebuild the same chained step program on the
+CPU, feed it the RECORDED inputs, and compare the output pose with the
+recorded GPU output pose frame by frame.  The first frame with a
+material pose delta isolates a divergent on-device computation; if all
+frames agree, a trajectory divergence lives in host-side state
+evolution.
 
-    python replay_diff.py record /tmp/rec.pkl
-    SDPL_PIN_CPU=1 python replay_diff.py replay /tmp/rec.pkl
+    python examples/replay_diff.py record rec.pkl
+    SDPL_PIN_CPU=1 python examples/replay_diff.py replay rec.pkl
 """
 import os
 import pickle
@@ -29,7 +30,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 from synthetic import SynthConfig, SynthSequence, synth_settings  # noqa: E402
 
-N_FRAMES = int(os.environ.get("SDPL_BISECT_FRAMES", "53"))
+N_FRAMES = int(os.environ.get("SDPL_REPLAY_FRAMES", "53"))
 
 
 def _settings():
@@ -154,9 +155,9 @@ def main():
                     jnp.asarray(rec["key"], dtype=jnp.uint32))
         out = np.array(out)
         p_cpu = pose_of(out).astype(np.float64)
-        p_tpu = pose_of(rec["out"]).astype(np.float64)
+        p_rec = pose_of(rec["out"]).astype(np.float64)
         d = float(np.max(np.abs(out - rec["out"])))
-        E = p_cpu[:3, :3].T @ p_tpu[:3, :3]
+        E = p_cpu[:3, :3].T @ p_rec[:3, :3]
         c = np.clip((np.trace(E) - 1) / 2, -1, 1)
         rd = float(np.degrees(np.arccos(c)))
         flag = "  <<<" if rd > 0.05 else ""

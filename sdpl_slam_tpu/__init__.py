@@ -1,11 +1,11 @@
-"""SDPL-SLAM-TPU: a TPU-native dynamic point-line RGB-D SLAM framework.
+"""SDPL-SLAM in JAX: a dynamic point-line RGB-D SLAM framework.
 
-A from-scratch JAX/XLA/Pallas rebuild with the capabilities of SDPL-SLAM
+A from-scratch JAX/XLA rebuild with the capabilities of SDPL-SLAM
 (semantic dynamic point-line SLAM): per-frame camera pose estimation, SE(3)
 rigid-motion estimation of every moving object, and a map of 3D points and
 3D (Pluecker) lines -- all expressed as batched, statically-shaped tensor
-programs that XLA can tile onto the MXU/VPU, instead of the reference's
-scalar per-feature C++ loops.
+programs that XLA compiles for the GPU, instead of the reference's scalar
+per-feature C++ loops.
 
 Layout
 ------
@@ -16,7 +16,7 @@ Layout
                   bundle-adjustment back-end (windowed + full sequence).
 - ``models``    : the SLAM pipeline state machines (Frame, Map, Tracking,
                   System facade) mirroring the reference public API.
-- ``parallel``  : jax.sharding Mesh utilities and the ICI-sharded global BA.
+- ``parallel``  : jax.sharding Mesh utilities and the sharded global BA.
 - ``io``        : dataset loaders (KITTI/OMD formats), output writers,
                   host->device prefetch.
 - ``utils``     : config (yaml, same keys as the reference), timing, metrics.
@@ -24,54 +24,40 @@ Layout
 
 __version__ = "0.1.0"
 
-import jax as _jax
-
-# Metric SLAM geometry cannot tolerate the TPU MXU's bf16 default-precision
-# matmuls (~5e-3 relative error on pose compositions -- verified to corrupt
-# trajectories).  All library matmuls run in full f32; compute-bound kernels
-# that genuinely want bf16 must request it explicitly.
-_jax.config.update("jax_default_matmul_precision", "float32")
-
-# Optional persistent compilation cache (opt-in via SDPL_JAX_CACHE=<dir>).
-# SDPL_JAX_CACHE=<dir> enables it unconditionally at import; without it,
-# ``maybe_enable_persistent_cache`` (called from System construction)
-# enables a default cache dir for ACCELERATOR backends only — measured
-# round 5: a second process's remote-TPU compiles drop 4.0 s -> 0.1 s,
-# which removes the first-LBA-window compile (~24 s) and the frame-0
-# program compiles (~95 s) from every process after the first.  CPU
-# stays opt-in: CPU AOT artifacts written by one machine can be loaded
-# by another with mismatched ISA features (observed SIGILL-risk
-# warnings).  SDPL_JAX_CACHE=0 disables entirely.
 import os as _os
 
-_cache_dir = _os.environ.get("SDPL_JAX_CACHE")
-if _cache_dir and _cache_dir != "0":
-    try:
-        _os.makedirs(_cache_dir, exist_ok=True)
-        _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
-    except Exception:
-        pass
+import jax as _jax
+
+# Metric SLAM geometry needs full-f32 matrix products: on Hopper, XLA's
+# default precision runs f32 matmuls in TF32 (~3 decimal digits), which
+# corrupts pose compositions.  Kernels that genuinely want a lower
+# precision must request it explicitly.
+_jax.config.update("jax_default_matmul_precision", "float32")
+
+# Persistent compile cache location on accelerator backends: fixed, inside
+# the checkout (listed in .gitignore), so every process of this checkout
+# finds what an earlier one compiled.
+CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_cache",
+)
 
 
 def maybe_enable_persistent_cache():
-    """Enable the persistent compile cache for accelerator backends.
+    """Point JAX's persistent compile cache at ``CACHE_DIR`` on an
+    accelerator backend; returns the directory it set, else None.
 
-    Called lazily (System construction) because deciding needs the
-    backend, and initializing the backend at import would break
-    platform-pinning callers (tests/conftest.py).  Idempotent."""
-    if _os.environ.get("SDPL_JAX_CACHE") is not None:
-        return      # explicit opt-in/out handled at import
-    try:
-        if _jax.config.jax_compilation_cache_dir:
-            return
-        if _jax.default_backend() == "cpu":
-            return
-        d = _os.path.join(_os.path.expanduser("~"), ".cache",
-                          "sdpl_slam_tpu", "jax_cache")
-        _os.makedirs(d, exist_ok=True)
-        _jax.config.update("jax_compilation_cache_dir", d)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                           2.0)
-    except Exception:
-        pass
+    Leaves JAX alone when a cache directory is already configured
+    (``JAX_COMPILATION_CACHE_DIR``, or the caller's own setting), and on the
+    CPU backend: CPU AOT artifacts record tuning pseudo-features that the
+    runtime host check does not report, and reading them back has aborted
+    the process (tests/conftest.py).  Called lazily (System construction)
+    because deciding needs the backend, and initializing the backend at
+    import would break platform-pinning callers.  Idempotent."""
+    if _jax.config.jax_compilation_cache_dir:
+        return None
+    if _jax.default_backend() == "cpu":
+        return None
+    _os.makedirs(CACHE_DIR, exist_ok=True)
+    _jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
+    return CACHE_DIR

@@ -75,6 +75,19 @@ def read_mask_txt(path: str | Path,
     return np.loadtxt(path, dtype=np.int32)
 
 
+def _cv2(reader: str):
+    """OpenCV, imported on first use: only image reads the native decoder
+    cannot serve need it."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(
+            f"{reader} needs OpenCV (the cv2 package) for this file: it is "
+            f"not a PNG, or the native PNG decoder (native/) is not built"
+        ) from e
+    return cv2
+
+
 def _gray_postprocess(im: np.ndarray) -> np.ndarray:
     """Native-decoded PNG -> grayscale, shared by the per-file and
     batched loaders."""
@@ -102,8 +115,7 @@ def read_image_gray(path: str | Path) -> np.ndarray:
         im = native.read_png(str(path))
         if im is not None:
             return _gray_postprocess(im)
-    import cv2
-
+    cv2 = _cv2("read_image_gray")
     im = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
     if im is None:
         raise FileNotFoundError(path)
@@ -122,8 +134,7 @@ def read_depth_png(path: str | Path) -> np.ndarray:
         im = native.read_png(str(path))
         if im is not None and im.ndim == 2:
             return im.astype(np.float32)
-    import cv2
-
+    cv2 = _cv2("read_depth_png")
     im = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
     if im is None:
         raise FileNotFoundError(path)

@@ -1,8 +1,9 @@
 """ctypes bindings for the native host-I/O kernels (native/sdpl_io.cpp).
 
-Builds the shared library on first use (g++ is in the base image; pybind11
-is not, hence ctypes).  Falls back to the pure-numpy readers when the
-toolchain is unavailable.
+Builds the shared library from native/ with ``make`` on first use, on
+the host that loads it (pybind11 is not assumed, hence ctypes).  Falls
+back to the pure-numpy readers when the toolchain or libpng is
+unavailable.
 """
 
 from __future__ import annotations
@@ -17,10 +18,11 @@ import numpy as np
 _NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
+_ERR = ""
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    global _LIB, _TRIED
+    global _LIB, _TRIED, _ERR
     if _LIB is not None or _TRIED:
         return _LIB
     _TRIED = True
@@ -129,13 +131,20 @@ def _load() -> Optional[ctypes.CDLL]:
             _pf, _pf, _pf, _pf, _pi,
         ]
         _LIB = lib
-    except Exception:
+    except Exception as e:
         _LIB = None
+        out = getattr(e, "stderr", b"") or b""
+        _ERR = f"{type(e).__name__}: {e} {out.decode(errors='replace')}"
     return _LIB
 
 
 def available() -> bool:
     return _load() is not None
+
+
+def load_error() -> str:
+    """Why the library did not load (empty when it did or was not tried)."""
+    return _ERR.strip()[-500:]
 
 
 def depth_preprocess(d: np.ndarray, choose_data: int, factor: float,

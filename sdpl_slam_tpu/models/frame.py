@@ -1,6 +1,6 @@
 """Frame feature ops: fixed-capacity, mask-validated per-frame state.
 
-TPU re-design of the reference ``Frame`` (/root/reference/src/Frame.cc) and
+Array re-design of the reference ``Frame`` (/root/reference/src/Frame.cc) and
 the per-frame parts of ``Tracking``: instead of ragged ``std::vector``s and
 scalar loops, every feature family lives in a fixed-capacity array with a
 validity mask, so the whole front-end is gathers/wheres that XLA fuses.

@@ -1,6 +1,6 @@
 """Projective and line geometry: pinhole camera, Pluecker/orthonormal lines.
 
-These are the batched TPU equivalents of the reference's scalar geometry:
+These are the batched array equivalents of the reference's scalar geometry:
 
 * pinhole projection / unprojection   (/root/reference/src/Frame.cc:1140-1290)
 * Pluecker construction               (/root/reference/src/Frame.cc:1564-1579)
@@ -99,7 +99,8 @@ def transform_plucker(T: jnp.ndarray, L: jnp.ndarray) -> jnp.ndarray:
     R = T[:3, :3]
     t = T[:3, 3]
     n, d = L[..., :3], L[..., 3:]
-    # full-f32 precision: MXU bf16 default is too coarse for metric geometry
+    # full-f32 precision: a TF32 or bf16 matmul is too coarse for metric
+    # geometry
     hi = jax.lax.Precision.HIGHEST
     Rd = jnp.matmul(d, R.T, precision=hi)
     Rn = jnp.matmul(n, R.T, precision=hi)

@@ -1,6 +1,6 @@
 """Line Band Descriptor (LBD): batched band-gradient statistics.
 
-Faithful TPU formulation of the reference's BinaryDescriptor
+Faithful array formulation of the reference's BinaryDescriptor
 (/root/reference/3rdparty/line_descriptor/src/binary_descriptor_custom.cpp):
 
 - line-support region of NUM_OF_BANDS=9 bands x widthOfBand=7 rows across
@@ -23,7 +23,7 @@ Faithful TPU formulation of the reference's BinaryDescriptor
   (binaryConversion, :401-412; assembly :660-666) -> 256 bits, compatible
   with :func:`..ops.orb.hamming_distance_matrix`.
 
-TPU adaptation: the reference walks every pixel along the line (variable
+Fixed-shape adaptation: the reference walks every pixel along the line (variable
 length); here each row is sampled at a fixed ``N_SAMPLES`` positions
 spanning the segment (static shapes).  Row sums then carry a constant
 factor relative to the reference, which cancels in the L2 normalizations.
@@ -39,7 +39,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-N_SAMPLES = 32        # fixed samples along the line (TPU static shape)
+N_SAMPLES = 32        # fixed samples along the line (static shape)
 N_BANDS = 9           # NUM_OF_BANDS (:57)
 BAND_WIDTH = 7        # widthOfBand_ (:113)
 _N_ROWS = N_BANDS * BAND_WIDTH

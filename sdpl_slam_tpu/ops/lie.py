@@ -150,14 +150,13 @@ def so3_orthonormalize(R: jnp.ndarray) -> jnp.ndarray:
     polar decomposition, ``R <- R (3I - R^T R) / 2`` (error eps -> O(eps^2)).
 
     Why this exists: chained f32 pose compositions drift from orthonormality
-    (measured ~1.3e-6/frame on TPU, whose multi-pass f32 matmul rounds with a
-    systematic bias, vs a random walk on CPU FMA units).  The reference never
+    (a steady drift where the matmul rounds with a systematic bias, a
+    random walk where it does not).  The reference never
     sees this because g2o stores rotations as unit quaternions in double
     (``g2o::SE3Quat``); the reference's clamped-trace rotation-error metric
     (/root/reference/src/Tracking.cc:5030) reads any orthonormality deficit
-    directly as phantom rotation error (0.65 deg of self-angle by frame 40 in
-    the round-4 bench, the entire "on-chip rotation regression").  Two 3x3
-    matmuls, branch-free, grad-safe.
+    directly as phantom rotation error, which grows with sequence length.
+    Two 3x3 matmuls, branch-free, grad-safe.
     """
     RtR = jnp.matmul(R.T, R, precision=jax.lax.Precision.HIGHEST)
     return 0.5 * jnp.matmul(
@@ -174,8 +173,8 @@ def se3_orthonormalize(T: jnp.ndarray) -> jnp.ndarray:
 def transform_point(T: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
     """Apply a 4x4 pose to 3D point(s); x has shape (..., 3).
 
-    Uses full-f32 matmul precision: TPU MXU default (bf16 inputs) costs
-    ~5e-3 relative error, far too coarse for metric SLAM geometry.
+    Uses full-f32 matmul precision: a TF32 or bf16 product costs ~1e-3
+    relative error or more, far too coarse for metric SLAM geometry.
     """
     return (
         jnp.matmul(x, T[:3, :3].T, precision=jax.lax.Precision.HIGHEST)

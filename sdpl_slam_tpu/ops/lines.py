@@ -3,8 +3,8 @@
 The reference detects lines with LSD (region growing over level-lines) or
 EDLines (edge drawing) inside 3rdparty/line_descriptor
 (/root/reference/src/Lineextractor.cc:47-135).  Both are inherently
-sequential, data-dependent region-growers -- the known-hard kernel for TPU
-(SURVEY.md 7.3).  This module uses a block-parallel reformulation:
+sequential, data-dependent region-growers -- the known-hard kernel for a
+data-parallel accelerator (SURVEY.md 7.3).  This module uses a block-parallel reformulation:
 
  1. Sobel gradients -> magnitude + level-line orientation (mod pi).
  2. Edge mask: magnitude threshold + thin non-maximum suppression.

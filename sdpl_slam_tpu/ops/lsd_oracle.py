@@ -13,7 +13,7 @@ alarms) validation with rectangle improvement.
 
 This module is a from-scratch numpy implementation of that ALGORITHM
 (from its published description), deliberately slow and scalar -- it is
-the fidelity ORACLE for the production TPU tiled-PCA detector
+the fidelity ORACLE for the production tiled-PCA detector
 (ops/lines.py), giving the a-contrario false-detection control the
 production path approximates.  tests/test_lsd_oracle.py measures the
 production detector's recall/precision/endpoint error against it.

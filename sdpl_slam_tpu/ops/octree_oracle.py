@@ -9,7 +9,7 @@ leaf is kept.  Per-level budgets follow the geometric series
 ``mnFeaturesPerLevel`` (ORBextractor.cc:409-424: nfeatures * (1-1/s) /
 (1-(1/s)^L) * (1/s)^level, remainder to the last level).
 
-The production TPU path (ops/fast.py) replaces this data-dependent tree
+The production path (ops/fast.py) replaces this data-dependent tree
 with a fixed-shape per-cell top-k + global response top-k.  This module
 is the behavioral oracle: tests/test_octree_parity.py quantifies how
 close the grid policy's retained-keypoint distribution is (per-cell

@@ -1,5 +1,5 @@
 """ORB descriptors: intensity-centroid orientation + rotated BRIEF, and
-Hamming matching as a +/-1 matmul on the MXU.
+Hamming matching as a +/-1 matmul.
 
 Parity notes (vs /root/reference/src/ORBextractor.cc):
 * Orientation is the intensity-centroid angle over the umax-bounded
@@ -21,8 +21,8 @@ Parity notes (vs /root/reference/src/ORBextractor.cc):
   differ by <1 LSB on real images -- the formula-level test injects the
   smoothed patch directly.
 * Matching (for the resurrected-retrieval use case): Hamming distance
-  via the +/-1 encoding:  ham = (256 - A B^T) / 2  -- one f32 matmul on
-  the MXU instead of XOR+popcount loops.
+  via the +/-1 encoding:  ham = (256 - A B^T) / 2  -- one f32 matmul
+  instead of XOR+popcount loops.
 """
 
 from __future__ import annotations
@@ -166,8 +166,8 @@ def brief_descriptors(img: jnp.ndarray, uv: jnp.ndarray) -> jnp.ndarray:
 def hamming_distance_matrix(a_bits: jnp.ndarray,
                             b_bits: jnp.ndarray) -> jnp.ndarray:
     """(N, 256) x (M, 256) bit arrays -> (N, M) Hamming distances via the
-    +/-1-encoding matmul: ham = (256 - A B^T)/2 -- runs on the MXU (the
-    'XOR-popcount as matmul' formulation)."""
+    +/-1-encoding matmul: ham = (256 - A B^T)/2 (the 'XOR-popcount as
+    matmul' formulation)."""
     a = a_bits.astype(jnp.float32) * 2.0 - 1.0
     b = b_bits.astype(jnp.float32) * 2.0 - 1.0
     dot = jnp.matmul(a, b.T, precision=jax.lax.Precision.DEFAULT)

@@ -3,11 +3,11 @@
 The reference initializes camera pose and object motions with OpenCV
 AP3P RANSAC (500 iters, 0.4 px, conf 0.98 -- /root/reference/src/
 Tracking.cc:2770-2779 and :2841-2972), then refines with the joint-flow
-optimizer.  AP3P's quartic root-finding maps poorly onto TPU; with RGB-D we
-have current-frame depth, so the TPU-native minimal solver here is 3-point
-3D-3D alignment via orthonormal triads (exact for minimal samples, pure
-arithmetic): all hypotheses are solved simultaneously on the MXU/VPU with
-no data-dependent control flow.  Candidate scoring keeps the reference's
+optimizer.  AP3P's quartic root-finding is branchy scalar code; with RGB-D
+we have current-frame depth, so the minimal solver here is 3-point 3D-3D
+alignment via orthonormal triads (exact for minimal samples, pure
+arithmetic): all hypotheses are solved simultaneously as batched array
+math with no data-dependent control flow.  Candidate scoring keeps the reference's
 criterion exactly:
 reprojection of last-frame 3D through the candidate pose vs the current 2D
 position, inlier at < 0.4 px.  (Same init quality target, different minimal
@@ -38,7 +38,7 @@ def _triad_align(P: jnp.ndarray, Q: jnp.ndarray) -> jnp.ndarray:
     sample of 3 correspondences, via orthonormal triads: build the frame
     (u, v, u x v) on each triangle and compose R = F_Q F_P^T.  Exact for
     rigid samples (what RANSAC hypotheses are), pure arithmetic -- no SVD
-    iteration, which dominated the hypothesis kernel's TPU time.
+    iteration, which would dominate the batched hypothesis solve.
     Degenerate (collinear) samples produce a garbage rotation that the
     inlier scoring rejects.  P, Q: (3, 3) rows are points."""
 

@@ -1,1 +1,1 @@
-"""Device-mesh utilities and the ICI-sharded bundle adjustment."""
+"""Device-mesh utilities and the edge-sharded bundle adjustment."""

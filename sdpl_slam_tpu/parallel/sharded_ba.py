@@ -7,11 +7,11 @@ embarrassingly parallel over the edge axis -- each edge gathers a handful
 of vertices, computes a tiny residual/Jacobian, and scatter-adds into the
 (small, replicated) variable vector.  Sharding recipe:
 
- * mesh axis ``"edge"`` over all chips (ICI);
+ * mesh axis ``"edge"`` over all devices;
  * every edge array (index, measurement, validity) sharded along axis 0;
  * vertex/state arrays replicated; the scatter-adds inside the CG
    Hessian-vector product become ``psum``-style collectives inserted by
-   GSPMD, riding the ICI.
+   GSPMD, riding the device interconnect (NVLink between GPUs).
 
 This scales the dominant cost (per-edge linearization + HVP streams) with
 chip count while keeping the reduced variable state coherent.

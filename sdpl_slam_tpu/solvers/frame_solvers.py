@@ -1,6 +1,6 @@
 """Per-frame joint flow+pose / flow+object-motion solvers as batched LM.
 
-TPU-native re-design of the reference's per-frame g2o graphs
+Array re-design of the reference's per-frame g2o graphs
 (/root/reference/src/Optimizer.cc:6409 ``PoseOptimizationFlow2CamWithLines``,
 :7603 ``PoseOptimizationFlow2withLines``).  The reference builds, per frame,
 a graph with ONE SE(3) vertex and one marginalized 2-dof flow vertex per

@@ -10,7 +10,7 @@ vector products over all edges (~40 edge streams per LM iteration).
 
 For WINDOW-scale graphs the reduced system is tiny — 6*(frames +
 motions) ≈ 350 dof for the reference's 20-frame window — so the exact
-g2o strategy is strictly better on TPU:
+g2o strategy trades the CG loop for dense linear algebra:
 
  * static points / lines have block-diagonal Hessian blocks (3x3 / 4x4)
    — closed-form batched inverses;
@@ -21,7 +21,7 @@ g2o strategy is strictly better on TPU:
    batched block-Thomas scan (vmap over chains, lax.scan over length);
  * the coupling blocks ``B`` are materialized densely per landmark
    family ((P, d, NDOF) — ~150 MB at KITTI window caps) so the Schur
-   complement  S = A - Bᵀ D⁻¹ B  is ONE big MXU matmul, and the damped
+   complement  S = A - Bᵀ D⁻¹ B  is ONE big matmul, and the damped
    step solves by dense Cholesky.
 
 Per LM iteration: one linearization + scatter assembly + two matmuls +

@@ -2,7 +2,7 @@
 
 The reference renders error curves with the vendored cvplot library inside
 ``PlotMetricError`` (/root/reference/src/Tracking.cc:5137-5394) and draws a
-live trajectory canvas.  Headless TPU pods have no display; this module
+live trajectory canvas.  Headless accelerator hosts have no display; this module
 saves the same curves as PNGs with matplotlib when available (a no-op
 otherwise -- plotting is observability, not pipeline).
 """

@@ -14,8 +14,8 @@ draws per frame (/root/reference/src/Tracking.cc:836-907):
    (x, z), colored by tracking label through a fixed palette
    (:854-903).
 
-Same semantics here, numpy/cv2 on the host (cv2 only for text; the
-shapes are drawn with numpy so the canvas works without it).  The
+Same semantics here, numpy/cv2 on the host (cv2 only for the header
+text, imported when a canvas is drawn; the shapes are drawn with numpy).  The
 reference's imshow windows are intentionally NOT replicated (headless
 environments); the canvas itself is the API artifact.
 """
@@ -90,19 +90,20 @@ def draw_frame(imtraj: np.ndarray, cam_T_wc: np.ndarray,
 
     try:
         import cv2
-
-        cv2.putText(imtraj, "Camera Trajectory (RED SQUARE)", (10, 30),
-                    cv2.FONT_HERSHEY_COMPLEX, 0.6, (255, 255, 255), 1)
-        cv2.putText(
-            imtraj,
-            "x = %02fm y = %02fm z = %02fm" % (pos[0], pos[1], pos[2]),
-            (10, 50), cv2.FONT_HERSHEY_COMPLEX, 0.6, (255, 255, 255), 1,
-        )
-        cv2.putText(imtraj, "Object Trajectories (COLORED CIRCLES)",
-                    (10, 70), cv2.FONT_HERSHEY_COMPLEX, 0.6,
-                    (255, 255, 255), 1)
-    except Exception:
-        pass                        # text is cosmetic; shapes suffice
+    except ImportError as e:
+        raise ImportError(
+            "the trajectory canvas (System.track_rgbd(traj=...)) needs "
+            "OpenCV (the cv2 package) for its header text") from e
+    cv2.putText(imtraj, "Camera Trajectory (RED SQUARE)", (10, 30),
+                cv2.FONT_HERSHEY_COMPLEX, 0.6, (255, 255, 255), 1)
+    cv2.putText(
+        imtraj,
+        "x = %02fm y = %02fm z = %02fm" % (pos[0], pos[1], pos[2]),
+        (10, 50), cv2.FONT_HERSHEY_COMPLEX, 0.6, (255, 255, 255), 1,
+    )
+    cv2.putText(imtraj, "Object Trajectories (COLORED CIRCLES)",
+                (10, 70), cv2.FONT_HERSHEY_COMPLEX, 0.6,
+                (255, 255, 255), 1)
 
     for centre, label in zip(obj_centres, obj_labels):
         c = np.asarray(centre, np.float64).reshape(-1)

@@ -25,6 +25,10 @@ from sdpl_slam_tpu.ops import lie
 import jax.numpy as jnp
 
 
+# part of the disk-cache key: bump it when _render's output changes
+_RENDER_VERSION = "numpy-strokes"
+
+
 @dataclasses.dataclass
 class SynthConfig:
     width: int = 640
@@ -100,7 +104,8 @@ class SynthSequence:
             import hashlib
             import os
             key = hashlib.sha1(
-                repr(sorted(_dc.asdict(cfg).items())).encode()
+                (_RENDER_VERSION + repr(sorted(_dc.asdict(cfg).items())))
+                .encode()
             ).hexdigest()[:16]
             d = os.path.join(os.path.dirname(__file__), ".synth_cache")
             os.makedirs(d, exist_ok=True)
@@ -297,13 +302,7 @@ class SynthSequence:
             for ddx in (0, 1):
                 gray[np.clip(dy + ddy, 0, H - 1),
                      np.clip(dx + ddx, 0, W - 1)] = val
-        try:
-            import cv2
-
-            for (sx, sy, ex, ey) in lines:
-                cv2.line(gray, (int(sx), int(sy)), (int(ex), int(ey)), 20, 2)
-        except Exception:
-            pass
+        draw_strokes(gray, lines, 20)
 
         return SynthFrame(
             gray=gray,
@@ -359,6 +358,27 @@ class SynthSequence:
                 # depth/flow lookups are then exact for the detection frame
                 out.append([round(ua), round(va), round(ub), round(vb)])
         return np.asarray(out, np.float32).reshape(-1, 4)
+
+
+def draw_strokes(img: np.ndarray, segs: np.ndarray, value: int) -> None:
+    """Draw 2-px strokes into ``img`` in place: a plus-shaped 3-px brush
+    swept along the DDA raster of each segment, clipped to the image --
+    the footprint of OpenCV's ``line(..., thickness=2)``, with no OpenCV
+    needed, so every host renders the same frames."""
+    h, w = img.shape
+    xs, ys = [], []
+    for sx, sy, ex, ey in np.asarray(segs, np.float64).reshape(-1, 4):
+        n = int(max(abs(ex - sx), abs(ey - sy))) + 1
+        t = np.linspace(0.0, 1.0, n)
+        xs.append(np.floor(sx + (ex - sx) * t + 0.5).astype(np.int64))
+        ys.append(np.floor(sy + (ey - sy) * t + 0.5).astype(np.int64))
+    if not xs:
+        return
+    xs, ys = np.concatenate(xs), np.concatenate(ys)
+    for dx, dy in ((0, 0), (1, 0), (-1, 0), (0, 1), (0, -1)):
+        x, y = xs + dx, ys + dy
+        ok = (x >= 0) & (x < w) & (y >= 0) & (y < h)
+        img[y[ok], x[ok]] = value
 
 
 def synth_settings(cfg: SynthConfig) -> "Settings":

@@ -363,8 +363,8 @@ def test_fused_lm_matches_split_path(tracked_map):
 def test_reduced_cg_budget_matches_full(tracked_map):
     """The partial window's inexact-Newton budget (ba_local_cg_iters):
     LM with a 10-iteration CG cap must land in the same cost basin as
-    the 40-iteration default (the on-chip sweep examples/tune_lba.py
-    adopts the production value from measured trajectory deltas; this
+    the 40-iteration default (the sweep examples/tune_lba.py picks the
+    production value from measured trajectory deltas on the card; this
     gates the mechanism itself cross-platform)."""
     sys = tracked_map
     import copy
@@ -379,8 +379,8 @@ def test_reduced_cg_budget_matches_full(tracked_map):
     w = ba_builder._weights_from_cfg(sys.settings)
     # inexact Newton trades CHEAPER inner (CG) iterations for MORE outer
     # (LM) iterations — the reduced-budget run gets a higher LM cap, the
-    # same trade the production budget makes (on-chip: 65 ms/iter at
-    # CG 10 vs 102 ms/iter at CG 40, examples/measure_lba_budget.py)
+    # same trade the production budget makes (examples/measure_lba_budget.py
+    # measures the per-iteration cost of each budget on the card)
     s40, c40, it40 = bb.run_ba_fused(graph, w, max_iters=12, cg_iters=40)
     s10, c10, it10 = bb.run_ba_fused(graph, w, max_iters=30, cg_iters=10)
     assert int(it10) >= 1 and np.isfinite(float(c10))

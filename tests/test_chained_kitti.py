@@ -44,7 +44,7 @@ import numpy as np
 import pytest
 
 
-def _kitti_settings(cfg, synth_settings, chained):
+def _kitti_settings(cfg, synth_settings, chained, ba_fused=False):
     s = synth_settings(cfg)
     s.max_track_point_bg = 1200
     s.max_track_point_obj = 800
@@ -57,17 +57,23 @@ def _kitti_settings(cfg, synth_settings, chained):
     s.run_local_ba = True
     s.window_size, s.overlap_size = 20, 4
     # split-unit BA keeps the XLA:CPU compiles small; the fused/split
-    # equivalence is covered separately (test_batch_ba)
-    s.ba_fused = False
+    # equivalence is covered separately (test_batch_ba).  The on-card
+    # smoke run (chip_smoke.py) passes the product default, True.
+    s.ba_fused = ba_fused
     s.chained_tracking = chained
     return s
 
 
-def _run_path(seq, settings, n, inject_lines=False):
+def _run_path(seq, settings, n, inject_lines=False, times=None):
+    """Track ``n`` frames; per-frame wall seconds are appended to
+    ``times`` when it is given."""
+    import time
+
     from sdpl_slam_tpu.models.system import System
 
     sys_ = System(settings, verbose=False)
     for t in range(n):
+        t0 = time.perf_counter()
         f = seq.frame(t)
         nxt = seq.frame(t + 1) if t + 1 < n else None
         nxt2 = seq.frame(t + 2) if t + 2 < n else None
@@ -78,6 +84,8 @@ def _run_path(seq, settings, n, inject_lines=False):
             next_image=None if nxt is None else nxt.gray,
             next_image2=None if nxt2 is None else nxt2.gray,
         )
+        if times is not None:
+            times.append(time.perf_counter() - t0)
     sys_.tracker.flush()
     return sys_
 
@@ -109,16 +117,23 @@ def _cfg(noise):
     )
 
 
-def kitti_parity_main():
-    """Body of the subprocess: exact-flow host vs chained parity."""
+def kitti_parity_main(ba_fused=False, times=None):
+    """Body of the subprocess: exact-flow host vs chained parity.
+    Returns (host, chained, seq); ``times`` (dict) receives the per-frame
+    wall seconds of each path under "host" and "chained"."""
     from synthetic import SynthSequence, synth_settings
 
     cfg = _cfg(0.0)
     seq = SynthSequence(cfg)
     n = 44
+    times = {} if times is None else times
 
-    host = _run_path(seq, _kitti_settings(cfg, synth_settings, False), n)
-    chained = _run_path(seq, _kitti_settings(cfg, synth_settings, True), n)
+    host = _run_path(
+        seq, _kitti_settings(cfg, synth_settings, False, ba_fused), n,
+        times=times.setdefault("host", []))
+    chained = _run_path(
+        seq, _kitti_settings(cfg, synth_settings, True, ba_fused), n,
+        times=times.setdefault("chained", []))
 
     mh, mc = host.map, chained.map
     assert mh.n_frames == mc.n_frames == n
@@ -215,6 +230,7 @@ def kitti_parity_main():
           "med_obj=%.2e/%.4fdeg worst_obj=%.2e/%.3fdeg"
           % (np.median(dts), np.median(drs), max(dts), max(drs),
              med_odt, med_odr, obj_dt[-1], obj_dr[-1]))
+    return host, chained, seq
 
 
 def line_ablation_main():

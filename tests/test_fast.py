@@ -1,5 +1,6 @@
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from sdpl_slam_tpu.ops import fast
 
@@ -67,12 +68,37 @@ def test_detect_keypoints_spatial_distribution(rng):
             assert n > 10, (qx, qy, n)
 
 
-def test_pallas_score_map_matches_xla(rng):
-    import jax.numpy as jnp
+def _fast_reference(img, t):
+    """Per-pixel FAST-9/16 straight from its definition, in numpy."""
+    img = img.astype(np.float64)
+    h, w = img.shape
+    p = np.pad(img, 3)
+    ring = np.stack([p[3 + dv:3 + dv + h, 3 + du:3 + du + w]
+                     for du, dv in fast._CIRCLE]) - img
+    out = np.zeros((h, w))
+    for mask in (ring > t, ring < -t):
+        run = np.zeros((h, w), bool)
+        for s in range(16):
+            run |= np.all([mask[(s + k) % 16] for k in range(9)], axis=0)
+        out = np.where(run, np.maximum(np.abs(ring) - t, 0).sum(0), out)
+    return out
 
-    img, _ = make_corner_image(rng)
-    a = np.asarray(fast.fast_score_map(jnp.asarray(img), 20.0))
-    b = np.asarray(
-        fast.fast_score_map_pallas(jnp.asarray(img), 20.0, interpret=True)
-    )
-    np.testing.assert_array_equal(a, b)
+
+@pytest.mark.parametrize("threshold", [7.0, 20.0])
+def test_fast_score_map_matches_definition(rng, threshold):
+    img = rng.integers(0, 255, (48, 70)).astype(np.uint8)
+    img[10:30, 20:40] = 250                       # solid corners too
+    got = np.asarray(fast.fast_score_map(jnp.asarray(img), threshold))
+    np.testing.assert_array_equal(got, _fast_reference(img, threshold))
+    assert (got > 0).mean() > 0.05
+
+
+def test_level_score_two_thresholds(rng):
+    """The one-pass pair equals the strict map, filled in by a quarter of
+    the weak map where the strict one found nothing."""
+    img = rng.integers(0, 255, (40, 64)).astype(np.uint8)
+    cfg = fast.FastPyramidConfig()
+    got = np.asarray(fast._level_score(jnp.asarray(img, jnp.float32), cfg))
+    hi = _fast_reference(img, cfg.ini_threshold)
+    lo = _fast_reference(img, cfg.min_threshold)
+    np.testing.assert_array_equal(got, np.where(hi > 0, hi, 0.25 * lo))

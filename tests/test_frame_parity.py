@@ -1,6 +1,6 @@
-"""The jnp feature-selection ops (models/frame.py, for co-located TPU
-deployments) must agree exactly with the host numpy mirrors
-(models/frame_host.py, the tunnel-optimized production path)."""
+"""The jnp feature-selection ops (models/frame.py, run by the
+device-resident paths) must agree exactly with the host numpy mirrors
+(models/frame_host.py, run by the host path)."""
 
 import jax.numpy as jnp
 import numpy as np

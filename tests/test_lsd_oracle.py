@@ -7,7 +7,7 @@ createLineSegmentDetector (LSDDetector_custom.cpp:291-309).  Tests:
  1. the oracle itself behaves like LSD: finds the edges of synthetic
     rectangles with sub-pixel endpoints, and its NFA a-contrario control
     yields ~zero detections on pure noise;
- 2. the production TPU tiled-PCA detector (ops/lines.py) is measured
+ 2. the production tiled-PCA detector (ops/lines.py) is measured
     against the oracle on textured synthetic scenes with quantified
     recall / precision / perpendicular-error thresholds -- replacing the
     earlier self-referential recall tests.

@@ -1,7 +1,7 @@
 """ORB keypoint-retention distribution parity vs the octree oracle.
 
 The reference retains FAST corners per level with DistributeOctTree
-(/root/reference/src/ORBextractor.cc:528-754); the production TPU path
+(/root/reference/src/ORBextractor.cc:528-754); the production path
 uses per-cell top-k + global response top-k (ops/fast.py:_grid_topk).
 These tests quantify, on synthetic corner fields, that the grid policy
 retains a keypoint SET with the same statistical properties the octree
